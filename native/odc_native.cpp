@@ -1,5 +1,5 @@
 // Native runtime codecs for object_detector_6d_tpu (reference parity:
-// the reference's IO layer is C++; the TPU compute path is JAX/Pallas,
+// the reference's IO layer is C++; the device compute path is JAX,
 // but store/model loading stays native for production banks).
 //
 //  * odc_read_store: templates_%s.yml.gz (the oracle FileStorage schema,

@@ -1,16 +1,15 @@
-"""object_detector_6d_tpu — TPU-native depth-based 6D object detection.
+"""object_detector_6d_tpu — accelerator-native depth-based 6D object detection.
 
-A brand-new JAX / XLA / Pallas framework with the capabilities of the
-depth-based 6D object detector ``haoruozhang/object_detector_6d``
-(LINEMOD-style template matching + point-to-plane ICP refinement), designed
-TPU-first:
+A JAX / XLA framework with the capabilities of the depth-based
+6D object detector ``haoruozhang/object_detector_6d`` (LINEMOD-style
+template matching + point-to-plane ICP refinement), run on the GPU:
 
-* depth -> point-cloud back-projection and surface normals as fused
-  XLA/Pallas programs (``geom``),
+* depth -> point-cloud back-projection and surface normals as fused XLA
+  programs (``geom``),
 * quantized gradient/normal modalities with bit-parity to the canonical
   OpenCV 4.6 contrib implementation (``quant``),
-* the LINEMOD template sweep as a batched int8 convolution on the MXU over
-  all templates and image offsets (``match``),
+* the LINEMOD template sweep as one batched convolution over all
+  templates and image offsets (``match``),
 * batched point-to-plane ICP with per-hypothesis SE(3) solves on device
   (``refine``),
 * hypothesis scoring + NMS in device memory (``api``), and

@@ -1,9 +1,9 @@
-"""LINEMOD Detector: the reference's public matching API, TPU-native.
+"""LINEMOD Detector: the reference's public matching API, on device.
 
 Mirrors linemod::Detector (linemod.hpp:294-413): ``add_template`` /
 ``add_synthetic_template`` build per-class template pyramids (host-side,
 training time); ``match`` runs the per-frame hot path — quantize ->
-spread -> response maps -> batched MXU conv sweep at the coarsest pyramid
+spread -> response maps -> batched conv sweep at the coarsest pyramid
 level -> local 16x16 refinement at finer levels -> threshold, sort, dedup
 (match semantics follow linemod.cpp matchClass: anchor offset
 T/2 + (T%2-1), candidate x2+1 upsampling with an 8T border clamp,
@@ -61,7 +61,7 @@ def _offset(t: int) -> int:
 
 
 class Detector:
-    """TPU-native LINEMOD detector (getDefaultLINEMOD-compatible defaults)."""
+    """LINEMOD detector (getDefaultLINEMOD-compatible defaults)."""
 
     def __init__(
         self,
@@ -236,8 +236,7 @@ class Detector:
         return self._kernel_cache[key]
 
     # largest fused candidate capacity before falling back to the host
-    # path (the Pallas refine sweeps K*F features; 1024 candidates is
-    # ~0.5 ms/frame/modality — far beyond any realistic threshold)
+    # path (far beyond any realistic threshold)
     MAX_FUSED_CANDIDATES = 1024
 
     def match(
@@ -306,9 +305,6 @@ class Detector:
         prog_key = ("prog", shape, max_candidates, max_dr)
         prog = self._kernel_cache.get(prog_key)
         if prog is None:
-            import jax
-
-            refine_impl = "pallas" if jax.default_backend() == "tpu" else "conv"
             prog = mp.make_match_program(
                 self.modality_names,
                 self.t_at_level,
@@ -317,18 +313,15 @@ class Detector:
                 self.cg_params,
                 max_candidates,
                 max_dr,
-                refine_impl=refine_impl,
             )
             self._kernel_cache[prog_key] = prog
         srcs = [jnp.asarray(s) for s in sources]
-        # device-resident bank args, converted once per bank (per-call
-        # host->device conversions cost one upload RPC each)
+        # device-resident bank args, converted once per bank
         akey = ("bank_args", self.bank_version, id(bank))
         bank_args = self._kernel_cache.get(akey)
         if bank_args is None:
             bank_args = (
                 bank.kernels_low,
-                bank.kernels_dec,
                 (bank.feat_plane, bank.feat_dr, bank.feat_dc, bank.feat_n),
                 jnp.asarray(bank.nfeat[0]),
                 jnp.asarray(bank.nfeat[1]),

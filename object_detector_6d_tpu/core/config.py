@@ -58,7 +58,7 @@ class DetectorParams:
 class ICPParams:
     """Point-to-plane ICP parameters (icp.hpp:90-98, 117).
 
-    ``solves_per_assoc`` is TPU-specific (no oracle analog): in the
+    ``solves_per_assoc`` has no oracle analog: in the
     projective-association path (refine/projective.py) each iteration
     associates once (the scene gather — the stage's entire device cost)
     and then runs this many Gauss-Newton solves on the fixed
@@ -67,7 +67,7 @@ class ICPParams:
     recovers most of a fresh association's progress at zero gather
     cost. Ignored by the brute-force NN path (refine/icp.py).
 
-    ``finest_assoc`` is TPU-specific too: if > 0 it caps the number of
+    ``finest_assoc`` has none either: if > 0 it caps the number of
     associations run at the FINEST pyramid level (the full model
     cloud — ~half the stage's gather rows since every coarser level
     strides the model by 2^level). By the time the finest level runs,
@@ -123,11 +123,11 @@ class DetectParams:
     # first ``num_seeds`` of the (q25, q50, q75) window-depth quantiles
     # as translation seeds; the coarse ICP phase runs K*num_seeds lanes
     # and each candidate keeps its best seed by residual. 2 drops the
-    # q75 seed (ablation: 2.4 ms/batch-16 at the headline shape) — keep
-    # 3 for heavy-occlusion workloads, where the object surface sits in
+    # q75 seed (a third fewer coarse lanes) — keep 3 for
+    # heavy-occlusion workloads, where the object surface sits in
     # the window's UPPER depth quantiles behind a foreground occluder.
     num_seeds: int = 3
-    # Windowed MXU association for the fine ICP phase (refine/projective
+    # Windowed association for the fine ICP phase (refine/projective
     # _associate_window): per surviving candidate, one static crop of
     # the packed scene around the match center replaces the latency-
     # bound full-scene row gather with two dense one-hot contractions
@@ -136,11 +136,8 @@ class DetectParams:
     # rejects anyway). -1 = auto-size from the template bank's largest
     # bbox plus a 64 px pose-drift margin (pipeline.py); 0 = off
     # (full-scene gather everywhere); > 0 = explicit window size in px.
-    # DEFAULT OFF: the 2026-08-21 ablation (tools/prof_detect_ablate.py)
-    # measured the one-hot contraction formulation 8.3 ms/batch-16
-    # SLOWER than the row gather at the headline shapes — the HIGHEST-
-    # precision matmul (needed for exactness) costs 6 bf16 MXU passes
-    # over the full [n, window^2] one-hot volume, which exceeds the
-    # latency-bound gather it replaces. Kept as an opt-in: the
-    # formulation wins only if the window is small (<= ~128 px).
+    # DEFAULT OFF: the one-hot contraction needs a HIGHEST-precision
+    # matmul (for exactness) over the full [n, window^2] one-hot volume;
+    # whether it beats the row gather it replaces has not been measured
+    # on the GPU (tools/prof_detect_ablate.py measures it).
     icp_window: int = 0

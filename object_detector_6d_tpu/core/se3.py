@@ -18,7 +18,8 @@ import functools
 import jax
 import jax.numpy as jnp
 
-# TPU matmuls default to bf16 accumulation; pose math needs full f32.
+# Default-precision f32 matmuls may run in reduced precision (TF32 on a
+# GPU); pose math needs full f32.
 _mm = functools.partial(jnp.matmul, precision=jax.lax.Precision.HIGHEST)
 
 

@@ -6,7 +6,7 @@ closest-point distance. A pose is "correct" at threshold k*d if its
 ADD(-S) is below k times the model diameter (k = 0.1 for the standard
 ADD-0.1d accuracy the reference reports).
 
-Batched jnp implementations; ADD-S uses the same MXU brute-force
+Batched jnp implementations; ADD-S uses the same matmul brute-force
 nearest-neighbor as the ICP.
 """
 

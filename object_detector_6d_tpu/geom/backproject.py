@@ -4,7 +4,7 @@ Mirrors depthTo3d / depthTo3dSparse (depth.hpp:291-312), verified against
 the oracle to float32 precision: x = z*(u-cx)/fx, y = z*(v-cy)/fy, with
 u16 input first rescaled to meters (0 -> NaN) exactly like the oracle.
 
-This is pure fused elementwise VPU work under jit; the (u-cx)/fx grids are
+This is pure fused elementwise work under jit; the (u-cx)/fx grids are
 constants folded by XLA.
 """
 

@@ -8,7 +8,7 @@ For each pixel, with unit ray v(u,v) = normalize(K^-1 (u,v,1)) and range
 r = |point|, the scaled normal minimizes sum_w (v_i . n - 1/r_i)^2 over
 the window, giving n = M^-1 b with M = sum v v^T and b = sum v/r.
 
-TPU-first split, mirroring the oracle's cached-initialization design:
+Host/device split, mirroring the oracle's cached-initialization design:
 
 * init (host, once per (H, W, K, window)): M and M^-1 per pixel in
   float64 — M is near-singular for small windows (ray directions vary by
@@ -16,7 +16,7 @@ TPU-first split, mirroring the oracle's cached-initialization design:
   inverse is then cast to f32 and lives on device as a [H, W, 3, 3]
   constant.
 * runtime (jit): 1/r image, three separable box sums for b, and a 3x3
-  matvec per pixel — fused elementwise VPU work, no gathers, f32
+  matvec per pixel — fused elementwise work, no gathers, f32
   throughout (validated to <1.1 deg 99p angular error vs the oracle).
 
 Normals are unit length and oriented toward the camera (n . ray < 0),
@@ -79,10 +79,10 @@ class FalsNormals:
         valid = jnp.isfinite(r) & (r > 0)
         inv_r = jnp.where(valid, 1.0 / jnp.where(valid, r, 1.0), 0.0)
         b = _box_sum(self._rays * inv_r[..., None].astype(jnp.float32), radius)
-        # HIGHEST: the default TPU matmul precision truncates operands to
-        # bf16 (8-bit mantissa) on the MXU, which is several degrees of
-        # normal error — poison for the ncos correspondence gate and the
-        # point-to-plane residuals downstream
+        # HIGHEST: a default-precision matmul may truncate operands
+        # (TF32 on a GPU), which is degrees of normal error — poison for
+        # the ncos correspondence gate and the point-to-plane residuals
+        # downstream
         n = jnp.einsum("hwij,hwj->hwi", self._minv, b,
                        precision=jax.lax.Precision.HIGHEST)
         norm = jnp.linalg.norm(n, axis=-1, keepdims=True)

@@ -1,7 +1,7 @@
 """Plane extraction from organized clouds (reference N5: RgbdPlane,
 depth.hpp:327-457; block-merge segmentation).
 
-TPU-first split of the reference's block-based algorithm:
+Device/host split of the reference's block-based algorithm:
 
 * device (one jitted program): per-block least-squares plane fits —
   block centroids/covariances are batched 3x3 eigen problems; block
@@ -44,7 +44,8 @@ def _block_planes(points: jnp.ndarray, block_size: int):
     b0 = jnp.where(finite[..., None], blocks, 0.0)
     mean = b0.sum(1) / cnt[:, None]
     centered = jnp.where(finite[..., None], blocks - mean[:, None, :], 0.0)
-    cov = jnp.einsum("bki,bkj->bij", centered, centered) / cnt[:, None, None]
+    cov = jnp.einsum("bki,bkj->bij", centered, centered,
+                     precision=jax.lax.Precision.HIGHEST) / cnt[:, None, None]
     evals, evecs = jnp.linalg.eigh(cov)
     normal = evecs[..., 0]
     # orient toward camera (-z half-space; camera looks down +z)
@@ -63,7 +64,9 @@ def _block_planes(points: jnp.ndarray, block_size: int):
 def _assign_pixels(points, normals, ds, active, dist_threshold):
     """Per-pixel best plane by |n.p + d| (masked by ``active``)."""
     dist = jnp.abs(
-        jnp.einsum("hwi,ki->hwk", jnp.nan_to_num(points), normals) + ds[None, None, :]
+        jnp.einsum("hwi,ki->hwk", jnp.nan_to_num(points), normals,
+                   precision=jax.lax.Precision.HIGHEST)
+        + ds[None, None, :]
     )
     dist = jnp.where(active[None, None, :], dist, jnp.inf)
     best = jnp.argmin(dist, -1)

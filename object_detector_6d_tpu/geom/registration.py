@@ -9,7 +9,7 @@ Both are scatter-style reprojections:
   within the same camera — the "render the frame as seen after moving
   by Rt" op used by odometry testing.
 
-TPU-native formulation: the scatter is a ``.at[idx].min()`` over flat
+Device formulation: the scatter is a ``.at[idx].min()`` over flat
 pixel indices (XLA scatter-min) — no host loops; invalid/occluded pixels
 resolve by depth ordering exactly like a z-buffer.
 """
@@ -62,7 +62,8 @@ def register_depth(
         [z * (u - intr.cx) / intr.fx, z * (v - intr.cy) / intr.fy, z], -1
     )
     Rt = jnp.asarray(Rt, jnp.float32)
-    pts = pts @ Rt[:3, :3].T + Rt[:3, 3]
+    pts = jnp.matmul(pts, Rt[:3, :3].T,
+                     precision=jax.lax.Precision.HIGHEST) + Rt[:3, 3]
     return _project_scatter_depth(pts, K_dst, out_shape[0], out_shape[1])
 
 
@@ -85,7 +86,8 @@ def warp_frame(
         [z * (u - intr.cx) / intr.fx, z * (v - intr.cy) / intr.fy, z], -1
     )
     Rt = jnp.asarray(Rt, jnp.float32)
-    pts = pts @ Rt[:3, :3].T + Rt[:3, 3]
+    pts = jnp.matmul(pts, Rt[:3, :3].T,
+                     precision=jax.lax.Precision.HIGHEST) + Rt[:3, 3]
     x, y, zz = pts[..., 0], pts[..., 1], pts[..., 2]
     un = jnp.round(intr.fx * x / zz + intr.cx).astype(jnp.int32)
     vn = jnp.round(intr.fy * y / zz + intr.cy).astype(jnp.int32)

@@ -16,7 +16,7 @@ lsb/msb nibbles; we rotate the spread byte so orientation i sits at
 bit 0 and resolve the circular distance with a 5-step priority select
 over fixed bit masks — arithmetic-identical (ops/lut.py), no gather.
 
-Both fuse into one XLA program; output feeds the MXU template sweep
+Both fuse into one XLA program; output feeds the template sweep
 (match/sweep.py, match/program.py).
 """
 

@@ -1,7 +1,7 @@
-"""Template sweep as a batched MXU convolution (the framework's perf core).
+"""Template sweep as a batched convolution (the framework's perf core).
 
 The reference CPU implementation reorganizes response maps into "linear
-memories" and strided u8 sums (cache-friendly SSE). On TPU the same math
+memories" and strided u8 sums (cache-friendly SSE). On an accelerator the same math
 is a *convolution*: for templates encoded as one-hot kernels
 K[t, ori, dy, dx] (1 where template t has a feature with that
 orientation at that offset),
@@ -9,7 +9,7 @@ orientation at that offset),
     score[t, r, c] = sum_f R[label_f, r*T + fy_f, c*T + fx_f]
                    = conv(R, K) with window stride T,
 
-which XLA tiles directly onto the MXU. Inputs are cast to bf16 (response
+which XLA maps onto the matrix units. Inputs are cast to bf16 (response
 values 0..4 and one-hot kernels are exact in bf16) with f32 accumulation
 (exact for integer sums < 2^24), so scores are bit-identical to integer
 accumulation.

@@ -1,14 +1,14 @@
-"""5x5 median filter over small-alphabet u8 images, TPU-first.
+"""5x5 median filter over small-alphabet u8 images, by counting.
 
 The LINEMOD depth-normal quantizer post-filters its one-hot orientation
 image with a numeric 5x5 median (the canonical implementation calls
 cv::medianBlur(ksize=5) on the quantized bytes; border handling is
-replicate). A generic per-pixel sort of 25 values is a poor fit for the
-VPU, but the quantized image only ever holds the 9 byte values
+replicate). A generic per-pixel sort of 25 values is a poor fit for
+vector hardware, but the quantized image only ever holds the 9 byte values
 {0, 1, 2, 4, ..., 128} — so the median is computed by *counting*: build a
 cumulative histogram over the 9 values with two separable 5x5 box sums and
 select the first value whose cumulative count reaches 13. Everything is
-elementwise adds and compares — pure VPU work that XLA fuses.
+elementwise adds and compares — work that XLA fuses.
 
 HBM-traffic note: a window count never exceeds 25, so four 8-bit count
 fields pack into one int32 with no cross-field carry. The eight one-hot

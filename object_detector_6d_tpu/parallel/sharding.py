@@ -2,7 +2,7 @@
 
 The reference is a single-process CPU pipeline (SURVEY.md section 2.3);
 its scaling axes are the template bank and the frame/camera stream. The
-TPU-native mapping:
+device mapping:
 
 * **data axis (DP)**: frames/cameras shard over ``data`` — each device
   quantizes and builds response maps for its own frames (configs 4-5:
@@ -11,7 +11,7 @@ TPU-native mapping:
   each device sweeps its template shard against (replicated) response
   maps of its frame shard, then candidates merge with one
   ``all_gather`` + top-k over the model axis (the only collective in
-  the coarse path — it rides ICI).
+  the coarse path).
 * **hypothesis axis (SP-analog)**: the ICP hypothesis batch also shards
   over ``model`` (hypotheses are embarrassingly parallel; one
   ``all_gather`` collects refined poses).
@@ -35,13 +35,19 @@ from jax.sharding import Mesh
 
 
 def make_mesh(n_devices: int | None = None) -> Mesh:
-    """2D (data, model) mesh over the available devices.
+    """2D (data, model) mesh over the first ``n_devices`` devices.
+
+    The model (template/hypothesis) axis is the smallest divisor of n
+    whose square is >= n (4 devices -> 2 x 2, 8 -> 2 x 4). Every device
+    reaches every other at the same rate, so the split follows the
+    algorithm alone: the model axis must divide the bank and the
+    hypothesis count, the data axis the frame batch.
 
     Raises a clear error when the runtime exposes fewer devices than
-    requested (e.g. asking for 8 with one real chip visible) — callers
-    that need a virtual mesh must provision it via ``JAX_PLATFORMS=cpu``
-    + ``--xla_force_host_platform_device_count`` *before* jax initializes
-    (see tests/conftest.py and __graft_entry__.dryrun_multichip).
+    requested — callers that need a virtual mesh must provision it via
+    ``JAX_PLATFORMS=cpu`` + ``--xla_force_host_platform_device_count``
+    *before* jax initializes (see tests/conftest.py and
+    __graft_entry__.dryrun_multichip).
     """
     devs = jax.devices()
     n = n_devices or len(devs)
@@ -53,18 +59,6 @@ def make_mesh(n_devices: int | None = None) -> Mesh:
             f"XLA_FLAGS=--xla_force_host_platform_device_count={n} before "
             "jax initializes."
         )
-    devs = devs[:n]
-    # square-ish factorization: model (TP) axis gets the larger factor
-    tp = 1
-    for cand in (2, 4, 8):
-        if n % cand == 0 and n // cand <= cand:
-            tp = cand
-            break
-    else:
-        for cand in (8, 4, 2):
-            if n % cand == 0:
-                tp = cand
-                break
-    dp = n // tp
-    arr = np.array(devs).reshape(dp, tp)
+    tp = min(d for d in range(1, n + 1) if n % d == 0 and d * d >= n)
+    arr = np.array(devs[:n]).reshape(n // tp, tp)
     return Mesh(arr, axis_names=("data", "model"))

@@ -5,7 +5,7 @@ Template-free hypothesis source: point-pair features F(p1,n1,p2,n2) =
 (||d||, angle(n1,d), angle(n2,d), angle(n1,n2)) vote in a Hough space
 over (model reference point, in-plane rotation alpha).
 
-TPU-first redesign of the reference's C++:
+Device redesign of the reference's C++:
 
 * the open-addressing ``hashtable_int`` (N15) becomes a **sorted key
   table + binary search** — model pair keys are sorted once at train
@@ -36,6 +36,8 @@ from object_detector_6d_tpu.core.se3 import SE3
 from object_detector_6d_tpu.ppf.helpers import sample_pc_by_quantization
 from object_detector_6d_tpu.refine.pose import Pose, cluster_poses
 
+_mm = functools.partial(jnp.matmul, precision=jax.lax.Precision.HIGHEST)
+
 _NUM_ANGLE_BINS = 30
 
 
@@ -55,7 +57,7 @@ def _align_to_x(p: jnp.ndarray, n: jnp.ndarray):
     from object_detector_6d_tpu.core.se3 import so3_exp
 
     R = so3_exp(safe_axis * ang[..., None])
-    t = -(R @ p[..., None])[..., 0]
+    t = -_mm(R, p[..., None])[..., 0]
     return R, t
 
 
@@ -74,7 +76,7 @@ def _pair_features(p1, n1, p2, n2):
 def _alpha(p_r, n_r, p_i):
     """In-plane angle of p_i after aligning (p_r, n_r) to the x-axis."""
     R, t = _align_to_x(p_r, n_r)
-    q = (R @ p_i[..., None])[..., 0] + t
+    q = _mm(R, p_i[..., None])[..., 0] + t
     return jnp.arctan2(-q[..., 2], q[..., 1])
 
 

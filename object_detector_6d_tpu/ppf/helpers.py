@@ -1,6 +1,6 @@
 """Point-cloud helpers (reference N14: ppf_helpers.hpp:64-146).
 
-TPU-native replacements: FLANN trees become brute-force MXU distance
+Device replacements: FLANN trees become brute-force distance
 matmuls (knn), PCA normals batch the per-point covariance eigen-solve,
 downsampling is a voxel-hash segment mean. PLY I/O lives in io/ply.py.
 """
@@ -48,7 +48,7 @@ def sample_pc_by_quantization(
 
 @functools.partial(jax.jit, static_argnames=("k",))
 def knn(query: jnp.ndarray, points: jnp.ndarray, k: int = 1):
-    """Brute-force k-nearest-neighbors on the MXU (replaces FLANN).
+    """Brute-force k-nearest-neighbors by matmul (replaces FLANN).
 
     Returns (indices [Q, k], sq_distances [Q, k])."""
     q2 = jnp.sum(query * query, -1, keepdims=True)
@@ -71,7 +71,8 @@ def compute_normals_pc3d(
     nbrs = xyz[idx]  # [N, k, 3]
     mean = nbrs.mean(1, keepdims=True)
     centered = nbrs - mean
-    cov = jnp.einsum("nki,nkj->nij", centered, centered)
+    cov = jnp.einsum("nki,nkj->nij", centered, centered,
+                     precision=jax.lax.Precision.HIGHEST)
     # smallest eigenvector of the 3x3 covariance
     w, v = jnp.linalg.eigh(cov)
     normal = v[..., 0]

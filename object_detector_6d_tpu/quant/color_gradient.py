@@ -1,4 +1,4 @@
-"""Color-gradient modality: bit-exact quantized orientations, TPU-native.
+"""Color-gradient modality: bit-exact quantized orientations, on device.
 
 Re-implements the reference stack's ColorGradient modality
 (linemod.hpp:163-198) and is verified bit-exact against the OpenCV 4.6
@@ -18,10 +18,9 @@ oracle (tests/test_color_gradient.py):
    magnitude > weak_threshold^2, a 3x3 majority vote over the 8 bins
    (>= 5 of 9 votes required) produces the one-hot byte 1 << bin.
 
-TPU layout note: all internal images are **channel-first** [3, H, W] so
-the lane dimension is W (the [H, W, 3] input layout would use 3 of 128
-VPU lanes); channel selection is computed with compares/wheres, not
-gathers. Measured ~6x faster than the channel-last formulation on v5e.
+Layout note: all internal images are **channel-first** [3, H, W] so the
+minor dimension is W; channel selection is computed with
+compares/wheres, not gathers.
 """
 
 from __future__ import annotations

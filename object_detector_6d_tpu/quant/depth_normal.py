@@ -1,4 +1,4 @@
-"""Depth-normal modality: bit-exact quantized surface normals, TPU-native.
+"""Depth-normal modality: bit-exact quantized surface normals, on device.
 
 Re-implements the reference stack's DepthNormal modality
 (linemod.hpp:200-240; the compiled quantizedNormals routine in
@@ -16,7 +16,7 @@ session — see tests/test_depth_normal.py):
 
 Instead of the CPU's per-pixel scalar loop, every step is expressed as
 shifted whole-image arithmetic: 8 static shifts, fused elementwise int32
-math, one 400-entry gather, and a histogram median — all VPU-friendly and
+math, one 400-entry gather, and a histogram median — all elementwise and
 jit-compiled as one fused XLA program.
 """
 
@@ -124,8 +124,8 @@ def quantized_normals(
     # The oracle's NORMAL_LUT is exactly the 8-sector octant map
     # bin = floor((atan2(vy-10, vx-10) + 22.5deg) / 45deg) mod 8
     # (verified cell-for-cell against the compiled table, ops/lut.py) —
-    # computed arithmetically here: TPU gathers are far slower than a
-    # handful of compares. Integer cells never land exactly on the
+    # computed arithmetically here: a handful of compares instead of a
+    # gather. Integer cells never land exactly on the
     # irrational tan(22.5deg) boundaries, so f32 compares are exact.
     cx = (vx - 10).astype(jnp.float32)
     cy = (vy - 10).astype(jnp.float32)

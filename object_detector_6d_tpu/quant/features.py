@@ -3,7 +3,7 @@ linemod.hpp:74-110).
 
 Host-side numpy: extraction runs once per training view at template-build
 time (not latency-critical — SURVEY.md section 7), while the per-frame
-quantizers it consumes are the TPU programs in quant/. Bit-parity with the
+quantizers it consumes are the device programs in quant/. Bit-parity with the
 oracle is verified on the golden sphere template
 (tests/test_features.py).
 

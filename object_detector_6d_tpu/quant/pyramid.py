@@ -13,7 +13,7 @@ Mirrors the reference's Modality::process -> QuantizedPyramid protocol
 Masks follow the oracle's INTER_NEAREST halving ([::2, ::2]).
 num_features halves per level (63 -> 31 with the defaults).
 
-Quantization itself runs as jitted TPU programs (quant/color_gradient.py,
+Quantization itself runs as jitted device programs (quant/color_gradient.py,
 quant/depth_normal.py); extraction is host-side (quant/features.py).
 """
 
@@ -50,10 +50,9 @@ def _reflect101_pad(x: jnp.ndarray, axis: int) -> jnp.ndarray:
 
 
 def _decimate_even(x: jnp.ndarray, n_out: int, axis: int) -> jnp.ndarray:
-    """x[..., 0::2, ...] via reshape (TPU: strided slices on the lane or
-    sublane axis lower to per-element shuffles — measured 8.8 ms vs
-    0.5 ms per 16x[3,480,640] pyrDown on v5e; a [..., n, 2] reshape +
-    static index is a relayout the compiler handles natively)."""
+    """x[..., 0::2, ...] via a [..., n, 2] reshape + static index (a
+    relayout compilers handle natively, where a strided slice on the
+    minor axes can lower to per-element shuffles)."""
     n = x.shape[axis]
     if n < 2 * n_out:  # odd length: one dummy tail column/row
         pad = [(0, 0)] * x.ndim
@@ -68,7 +67,7 @@ def _decimate_even(x: jnp.ndarray, n_out: int, axis: int) -> jnp.ndarray:
 def pyr_down_u8(img: jnp.ndarray) -> jnp.ndarray:
     """Bit-exact cv::pyrDown for u8 images [H, W, C] or [H, W].
 
-    TPU notes: internally channel-first ([C, H, W], lanes = W); each
+    Layout: internally channel-first ([C, H, W], minor axis W); each
     separable pass runs the 5-tap filter densely (contiguous slices
     XLA fuses into one vectorized expression) and then drops the odd
     outputs with a reshape-based decimation — same integer math

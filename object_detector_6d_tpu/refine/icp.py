@@ -2,14 +2,14 @@
 
 Plays the role of ppf_match_3d::ICP::registerModelToScene (icp.hpp:80-162;
 Picky ICP + multi-resolution + robust outlier rejection, point-to-plane
-linearization after Kok-Lim Low), redesigned TPU-first:
+linearization after Kok-Lim Low), redesigned for a batched device program:
 
 * hypotheses are a leading batch axis (one vmapped program refines 100s
   of poses at once — the reference loops one hypothesis at a time);
-* correspondences are **brute-force nearest neighbor on the MXU**
+* correspondences are **brute-force nearest neighbor by matmul**
   (one [N, M] distance matmul per iteration) instead of a FLANN k-d
-  tree — dense matmul is the idiomatic TPU replacement for pointer
-  chasing, and exact instead of approximate;
+  tree — dense matmul replaces pointer chasing, and is exact instead
+  of approximate;
 * robust rejection uses the median-absolute-deviation scaled by
   ``rejection_scale`` (the reference's robust threshold);
 * the 6x6 normal equations of the point-to-plane linearization are
@@ -43,7 +43,7 @@ _mm = functools.partial(jnp.matmul, precision=jax.lax.Precision.HIGHEST)
 def _nearest_scene(model_pts, scene_pts, scene_valid):
     """Indices + squared distances of scene NN for each model point.
 
-    model_pts [N, 3], scene_pts [M, 3]; one MXU matmul for the cross
+    model_pts [N, 3], scene_pts [M, 3]; one matmul for the cross
     term. Invalid scene rows are pushed to +inf.
     """
     m2 = jnp.sum(model_pts * model_pts, axis=-1, keepdims=True)  # [N,1]

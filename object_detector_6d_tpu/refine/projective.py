@@ -1,6 +1,6 @@
 """Projective-association point-to-plane ICP (KinectFusion style).
 
-The brute-force MXU nearest-neighbor ICP (refine/icp.py) is exact but
+The brute-force matmul nearest-neighbor ICP (refine/icp.py) is exact but
 materializes an [N, M] distance matrix per hypothesis per iteration —
 the right tool for unordered scene clouds, too expensive to fuse into
 the per-frame detect() program. This module is the organized-scene
@@ -9,21 +9,19 @@ variant the canonical stack uses in its real-time paths
 association): project each model point through the current pose into
 the scene's pixel grid and take the scene point/normal stored at that
 pixel as the correspondence — O(1) gathers instead of an O(M) search,
-which is exactly the organized-frame structure the TPU keeps resident
+which is exactly the organized-frame structure the device keeps resident
 anyway.
 
 Correspondence rejection follows FastICPOdometry, not the MAD rule of
 refine/icp.py: a per-level absolute distance cap plus a normal
 compatibility gate (transformed model normal . scene normal > cos 60
-deg). Measured on-chip, the per-iteration median sorts of the MAD rule
-cost little, but the gate needs no model-free robust statistics and is
+deg). The gate needs no per-iteration median sorts and is
 the canonical choice for projective association, where gross outliers
 are already excluded by the projection (out-of-frame / invalid pixels).
 
 The solve is the same centroid-conjugated point-to-plane linearization
 (Kok-Lim Low, icp.hpp:77-78) as refine/icp.py, via Cholesky (the
-normal matrix is SPD after Levenberg damping; batched 6x6 LU with
-pivoting costs ~2x more on TPU). Coarse-to-fine model subsampling with
+normal matrix is SPD after Levenberg damping). Coarse-to-fine model subsampling with
 convergence-masked fixed iteration budgets mirrors icp.hpp:90-98.
 
 Scene layout: ``scene7`` rows are [x, y, z, nx, ny, nz, valid] so one
@@ -56,13 +54,10 @@ def pack_scene7(scene6_img: jnp.ndarray) -> jnp.ndarray:
 def _chol_solve6(A, b):
     """Damped SPD 6x6 solve via explicitly unrolled Cholesky.
 
-    jnp.linalg.cholesky + cho_solve on a 6x6 lower to loopy TPU code:
-    measured 0.32 ms per 384-lane vmapped step — about HALF the cost of
-    a whole projective-ICP iteration (tools/prof_icp.py step_solve).
-    The unrolled form is pure elementwise math that vectorizes across
-    the vmapped lane batch on the VPU and measures ~0 ms
-    (solve_unrolled). Same damping and factorization order, so results
-    agree to f32 round-off.
+    jnp.linalg.cholesky + cho_solve on a 6x6 lower to a loop of small
+    ops per lane; the unrolled form is pure elementwise math that
+    vectorizes across the vmapped lane batch. Same damping and
+    factorization order, so results agree to f32 round-off.
     """
     lam = 1e-6 * jnp.trace(A) + 1e-12
     a = [[A[i, j] + jnp.where(i == j, lam, 0.0) for j in range(6)]
@@ -105,9 +100,9 @@ def _associate(
 ):
     """Projective data association: (scene point, normal, weight) per row.
 
-    The gather from the [H*W, 7] scene is THE cost of projective ICP on
-    TPU (~22 ns/row, XLA row-gather; tools/prof_icp.py) — everything
-    downstream of it is VPU elementwise + tiny MXU matmuls. Callers
+    The gather from the [H*W, 7] scene is the main cost of projective
+    ICP — everything downstream of it is elementwise math and tiny
+    matmuls. Callers
     amortize it by running more than one Gauss-Newton solve per
     association (see _proj_step's ``solves``)."""
     mp = SE3.apply(pose, model_pc[:, :3])
@@ -142,17 +137,15 @@ def _associate_window(
     max_corr_dist,
     min_normal_cos,
 ):
-    """Windowed projective association as TWO dense MXU contractions.
+    """Windowed projective association as TWO dense contractions.
 
-    The full-scene row gather (_associate) runs at ~22 ns/row on v5e —
-    a latency-bound XLA gather from the [H*W, 7] table, and the whole
-    device cost of the ICP stage. But every fine-phase correspondence
-    lies inside a small window around the match center (the pose is
-    already seeded within ~15 mm ≈ 10 px), so the gather target can be
-    a VMEM-sized window crop, and a gather from a window factorizes
-    into dense math the MXU eats: one-hot row selection
-    ``[n, wh] @ [wh, ww*C]`` followed by a one-hot column contraction
-    (elementwise multiply + reduce on the VPU). Both one-hot operands
+    The full-scene row gather (_associate) is a latency-bound XLA gather
+    from the [H*W, 7] table. But every fine-phase correspondence lies
+    inside a small window around the match center (the pose is already
+    seeded within ~15 mm ≈ 10 px), so the gather target can be a small
+    window crop, and a gather from a window factorizes into dense math:
+    one-hot row selection ``[n, wh] @ [wh, ww*C]`` followed by a one-hot
+    column contraction (elementwise multiply + reduce). Both one-hot operands
     are exact 0/1 f32 and the matmul runs at HIGHEST precision, so the
     result is the EXACT gathered row (each output element is one
     product 1.0 * v — the bf16x6 decomposition reconstructs v
@@ -220,7 +213,7 @@ def _proj_step(
     max_corr_dist,
     min_normal_cos,
     solves: int = 1,
-    window=None,  # (win_img [wh, ww, C], y0, x0) -> MXU windowed gather
+    window=None,  # (win_img [wh, ww, C], y0, x0) -> windowed gather
 ):
     """One projective point-to-plane iteration: associate once, then run
     ``solves`` Gauss-Newton updates on the fixed correspondence set.
@@ -263,7 +256,7 @@ def icp_levels(
     corr_dist_base: float = 0.015,
     min_normal_cos: float = 0.5,
     solves: int = 1,
-    window=None,  # (win_img [wh, ww, C], y0, x0): use the MXU windowed
+    window=None,  # (win_img [wh, ww, C], y0, x0): use the windowed
     #               association (_associate_window) instead of the
     #               full-scene gather; scene7 is then only a signature
     #               placeholder

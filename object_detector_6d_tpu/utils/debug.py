@@ -2,7 +2,7 @@
 
 The SURVEY.md section-5 auxiliary plan for sanitizers in a pure-
 functional JAX stack: no ASan/TSan analog exists or is needed, but two
-failure classes do — out-of-bounds gathers (silently clamped on TPU)
+failure classes do — out-of-bounds gathers (silently clamped by XLA)
 and NaNs escaping the masked-NaN convention the pipeline threads
 through every layer (NaN = invalid depth/normal is LEGAL inside the
 programs; NaN in a kept output pose is a bug).

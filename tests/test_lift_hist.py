@@ -64,7 +64,7 @@ def test_deep_background_span_capped():
     """A far wall inside the bbox margin must not widen the bins.
 
     Pre-cap, a 2.6 m window span meant ~20 mm bins — beyond the 15 mm
-    seed tolerance (ADVICE r04). With the 1 m span cap the object-side
+    seed tolerance. With the 1 m span cap the object-side
     quantiles stay bin-width-tight; far-background quantiles collapse to
     ~zmin+1 m (a mid-air seed the coarse-ICP inlier gate drops, like the
     true background seed would be)."""

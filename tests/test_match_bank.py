@@ -54,7 +54,7 @@ def test_bank_parity(golden, scene, key, thresh):
 
 def test_fused_overflow_widens_capacity():
     """Coarse-candidate overflow stays on the fused path: the capacity
-    ladder re-runs a wider program (VERDICT round-1 item 10) and the
+    ladder re-runs a wider program and the
     result equals the host-orchestrated reference exactly."""
     import pathlib
     import sys

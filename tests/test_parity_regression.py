@@ -7,7 +7,7 @@ checked in as tests/golden/parity_{add,occl,two,views}_oracle.npz.
 These tests re-run the production ``detect_fused`` path on a
 deterministic subset of each config's scenes and assert ADD against the
 goldens, so the parity table cannot regress unnoticed between full
-parity runs (VERDICT round-2 weak 7; round-3 missing 3). Subsets
+parity runs. Subsets
 deliberately include the scenes where ours beats the oracle (occl scene
 8, two scene 9 objB) — those are load-bearing claims in PARITY.md.
 """
@@ -45,7 +45,7 @@ def _make_detector(parity_add):
 def _single_view_detector():
     """Shared trained detector for the base + occl tests (identical bank
     and params -> identical compiled programs; recompiling them per test
-    dominated the fast suite, VERDICT r04 weak 6)."""
+    dominated the fast suite)."""
     import parity_add
 
     K, dep, gray, mask, _ = parity_add.scene_set()

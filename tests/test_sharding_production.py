@@ -1,4 +1,4 @@
-"""Sharded == unsharded at PRODUCTION shape (VERDICT round-2 item 6).
+"""Sharded == unsharded at PRODUCTION shape.
 
 The round-2 equality proof ran the mesh program at 120x160 toy shapes;
 this test runs the REAL deployment shape — 640x480 frames, a 32-template

@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""Multi-execution shape sweep for the fused detect path (TPU).
+"""Multi-execution shape sweep for the fused detect path.
 
 For each (G batches/execution, B frames/batch) shape: steady marginal
 ms/batch, plus a dispatch / device+transfer / host-finalize breakdown
@@ -8,13 +8,14 @@ economy (device NMS, kernel layout changes) to pick the bench shape.
 
 Usage: python3 tools/exp_shapes.py [G,B [G,B ...]]   (default sweep)
 """
+import os
 import sys
 import time
 
 import numpy as np
 
-sys.path.insert(0, "/root/repo")
-sys.path.insert(0, "/root/repo/tools")
+sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
+sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
 
 
 def log(*a):

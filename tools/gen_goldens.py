@@ -119,7 +119,7 @@ def gen_lmn():
 
 def gen_sri():
     """RgbdNormals SRI method goldens (points-image input, like FALS) —
-    quantifies PARITY deviation 4 with numbers (VERDICT round-2 item 8)."""
+    quantifies PARITY deviation 4 with numbers."""
     K = scenes.K_DEFAULT
     est = cv2.rgbd.RgbdNormals_create(
         480, 640, cv2.CV_32F, K, 5,

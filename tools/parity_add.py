@@ -1,4 +1,4 @@
-"""ADD-0.1d parity: the canonical cv2 pipeline vs the TPU framework.
+"""ADD-0.1d parity: the canonical cv2 pipeline vs this framework.
 
 The north-star accuracy target (BASELINE.json) is "ADD-0.1d matching CPU
 reference within 0.5%". This tool composes the reference pipeline from
@@ -12,9 +12,11 @@ runs BOTH pipelines over the same deterministic synthetic scene sets:
   # 2. our side (venv python; runs detect_fused, loads the oracle npz):
   python3 tools/parity_add.py ours <config>
       -> prints the per-scene and summary ADD / ADD-0.1d table
+  (ODC_PROMOTED=1 runs the shipping ICP schedule; chip_smoke.py runs
+  the ``base`` set at that schedule on the GPU)
 
 Configs (BASELINE.json `configs` analogs). Set sizes were grown 20/10/12
--> 64/32/64 in round 5 (VERDICT r04 missing 4): at >= 64 object
+-> 64/32/64 in round 5: at >= 64 object
 instances per config one scene is 1.6% of the rate, so the 0.5%
 north-star criterion resolves arithmetically at the one-scene
 granularity (any success-count difference is visible). The FIRST
@@ -404,18 +406,18 @@ def run_oracle(config):
 # ----------------------------------------------------------------------
 
 
-def _our_detector(**kw):
+def _our_detector(promoted=None, **kw):
     from object_detector_6d_tpu.api.pipeline import PoseDetector
     from object_detector_6d_tpu.core.config import DetectParams, ICPParams
 
-    # ODC_PROMOTED=1: the FULL promoted economy schedule from the
-    # round-5 ablation (solves_per_assoc=2, finest_assoc=2, num_seeds=2,
+    # promoted (ODC_PROMOTED=1 when not given): the shipping economy
+    # schedule (solves_per_assoc=2, finest_assoc=2, num_seeds=2,
     # fine_compact=8 — the last is a no-op here since max_hypotheses=8
     # already bounds the fine lanes, but it keeps the flag set
     # identical to the headline bench config). The parity table must be
-    # re-run and re-dated at whatever schedule ships (VERDICT r04
-    # missing 3).
-    promoted = os.environ.get("ODC_PROMOTED", "") not in ("", "0")
+    # re-run at whatever schedule ships.
+    if promoted is None:
+        promoted = os.environ.get("ODC_PROMOTED", "") not in ("", "0")
     if promoted:
         params = DetectParams(
             match_threshold=MATCH_THRESHOLD, max_hypotheses=8,
@@ -434,12 +436,14 @@ def _our_detector(**kw):
     )
 
 
-def _report(config, rows, thr):
-    """rows: (label, ours_add, oracle_add). Prints the table + summary."""
+def _report(config, rows, thr, per_scene=True):
+    """rows: (label, ours_add, oracle_add). Prints the table + summary;
+    returns {"n", "ours_hits", "oracle_hits", "ours_mean_add_mm",
+    "oracle_mean_add_mm"}."""
     n = len(rows)
     ours_hits = sum(1 for _, a, _o in rows if np.isfinite(a) and a < thr)
     orc_hits = sum(1 for _, _a, o in rows if np.isfinite(o) and o < thr)
-    for label, a, o in rows:
+    for label, a, o in rows if per_scene else ():
         print(f"{label}: ours ADD {a*1e3:7.2f} mm | oracle ADD {o*1e3:7.2f} mm",
               flush=True)
     ours_adds = [a for _, a, _ in rows if np.isfinite(a)]
@@ -451,16 +455,23 @@ def _report(config, rows, thr):
           f"{np.mean(orc_adds)*1e3:.2f} mm, ADD-0.1d {100.0*orc_hits/n:.1f}%")
     print(f"[{config}] ADD-0.1d gap: {abs(ours_hits - orc_hits) * 100.0 / n:.1f}% "
           f"(north star: <= 0.5%)")
+    return {"n": n, "ours_hits": ours_hits, "oracle_hits": orc_hits,
+            "ours_mean_add_mm": float(np.mean(ours_adds) * 1e3),
+            "oracle_mean_add_mm": float(np.mean(orc_adds) * 1e3)}
 
 
-def run_ours(config, use_host=False):
+def run_ours(config, use_host=False, promoted=None, n_scenes=None,
+             per_scene=True):
+    """Our side of one config; returns _report's summary. ``n_scenes``
+    runs only the first scenes of a base/occl set."""
     g = np.load(golden_path(config))
 
     if config in ("base", "occl"):
         model_pts = g["model"][:, :3]
         thr = 0.1 * float(g["diameter"])
         K, dep, gray, mask, scene_list = scene_set(occlude=(config == "occl"))
-        pd = _our_detector()
+        scene_list = scene_list[:n_scenes]
+        pd = _our_detector(promoted)
         bgr = np.repeat(gray[..., None], 3, axis=2)
         assert pd.add_view("obj", dep, K, mask.astype(np.uint8) * 255,
                            rgb=bgr) == 0
@@ -475,11 +486,11 @@ def run_ours(config, use_host=False):
             orc = (add_metric(g["est_poses"][i], gt, model_pts)
                    if g["est_found"][i] else np.nan)
             rows.append((f"scene {i:2d}", ours, orc))
-        _report(config, rows, thr)
+        return _report(config, rows, thr, per_scene)
 
     elif config == "two":
         K, train, scene_list = scene_set_two()
-        pd = _our_detector()
+        pd = _our_detector(promoted)
         for cid in ("objA", "objB"):
             dep, gray, mask = train[cid]
             assert pd.add_view(cid, dep, K, mask.astype(np.uint8) * 255,
@@ -499,13 +510,13 @@ def run_ours(config, use_host=False):
                        if g["est_found"][i, j] else np.nan)
                 rows.append((f"scene {i:2d} {cid}", ours, orc))
         # per-class thresholds differ by <2 mm; report with the tighter
-        _report(config, rows, min(thr.values()))
+        return _report(config, rows, min(thr.values()), per_scene)
 
     elif config == "views":
         model_pts = g["model"][:, :3]
         thr = 0.1 * float(g["diameter"])
         K, dep, gray, mask, train, scene_list = scene_set_views()
-        pd = _our_detector()
+        pd = _our_detector(promoted)
         for k, (P, d2, g2, m2) in enumerate(train):
             assert pd.add_view("obj", d2, K, m2.astype(np.uint8) * 255,
                                rgb=np.repeat(g2[..., None], 3, axis=2),
@@ -519,7 +530,7 @@ def run_ours(config, use_host=False):
             orc = (add_metric(g["est_poses"][i], gt, model_pts)
                    if g["est_found"][i] else np.nan)
             rows.append((f"yaw {TEST_DEGS[i]:+5.1f}", ours, orc))
-        _report(config, rows, thr)
+        return _report(config, rows, thr, per_scene)
     else:
         raise SystemExit(f"unknown config {config}")
 

@@ -1,10 +1,10 @@
 #!/usr/bin/env python3
-"""Ablation split of the production fused detect program (run on TPU).
+"""Ablation split of the production fused detect program (run on the GPU).
 
-tools/prof_icp.py times the ICP phases STANDALONE with worst-case
-(non-converging) poses; inside the production program the while_loops
-exit early on real seeds, so standalone numbers mis-attribute the
-per-batch budget. This tool measures the REAL split by building
+Standalone ICP timings with worst-case (non-converging) poses
+mis-attribute the per-batch budget: inside the production program the
+while_loops exit early on real seeds. This tool measures the REAL split
+by building
 variants of the production program (api/detect_program.py, batch 16,
 flat/cluster output) and diffing steady-state device time:
 
@@ -23,13 +23,15 @@ iters_down (accuracy knob) — parity is re-run whenever a variant is
 promoted into the production config.
 """
 
+import os
 import sys
 import time
 
 import numpy as np
 
-sys.path.insert(0, "/root/repo")
-sys.path.insert(0, "/root/repo/tools")
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+sys.path.insert(0, ROOT)
+sys.path.insert(0, os.path.join(ROOT, "tools"))
 import scenes  # noqa: E402
 
 import jax  # noqa: E402
@@ -44,10 +46,12 @@ def log(*a):
 
 
 def main():
-    jax.config.update("jax_compilation_cache_dir", "/root/repo/.jax_cache")
-    jax.config.update("jax_persistent_cache_min_entry_size_bytes", -1)
-    jax.config.update("jax_persistent_cache_min_compile_time_secs", 1.0)
-    log("devices:", jax.devices())
+    from chip_smoke import gpu_name_and_power, require_gpu
+    from object_detector_6d_tpu.utils import compile_cache
+
+    require_gpu(jax)
+    compile_cache.enable()
+    log("devices:", jax.devices(), "|", gpu_name_and_power())
     from object_detector_6d_tpu.api import detect_program as dp_mod
     from object_detector_6d_tpu.api.pipeline import PoseDetector
     from object_detector_6d_tpu.core.config import DetectParams, ICPParams
@@ -95,20 +99,11 @@ def main():
     nms_scalars = jnp.asarray([0.05, 0.02], jnp.float32)
     margs = (
         [rgbs_d, depths_d],
-        bank.kernels_low, bank.kernels_dec,
+        bank.kernels_low,
         (bank.feat_plane, bank.feat_dr, bank.feat_dc, bank.feat_n),
         jnp.asarray(bank.nfeat[0]), jnp.asarray(bank.nfeat[1]),
         jnp.asarray(bank.sizes[0]), jnp.asarray(bank.sizes[1]),
     )
-
-    tiny = jax.jit(lambda x: x + 1)
-    np.asarray(tiny(jnp.float32(1.0)))
-    floor = 1e9
-    for _ in range(5):
-        t0 = time.time()
-        np.asarray(tiny(jnp.float32(1.0)))
-        floor = min(floor, time.time() - t0)
-    log(f"  [rpc_floor] {floor*1e3:.1f} ms/exec")
 
     def device_time(name, fn, args, iters=6, reps=3):
         @jax.jit
@@ -119,7 +114,7 @@ def main():
                 for x in jax.tree_util.tree_leaves(out):
                     # posinf/neginf -> 0: inf residuals in the flat output
                     # otherwise overflow the accumulator and degenerate
-                    # scan iterations 2..N (ADVICE r04)
+                    # scan iterations 2..N
                     s = s + jnp.sum(jnp.nan_to_num(
                         x.astype(jnp.float32), posinf=0.0, neginf=0.0,
                     )) * 1e-30
@@ -135,7 +130,7 @@ def main():
             t0 = time.time()
             np.asarray(many(args))
             best = min(best, time.time() - t0)
-        ms = (best - floor) / iters * 1e3
+        ms = best / iters * 1e3
         log(f"  [{name}] {ms:8.2f} ms/batch-{B}")
         return ms
 
@@ -147,7 +142,7 @@ def main():
         return dp_mod.make_detect_program(
             pd.detector.modality_names, pd.detector.t_at_level, (H, W),
             pd.detector.dn_params, pd.detector.cg_params, K,
-            max_candidates=16, max_dr=max_dr, refine_impl="pallas",
+            max_candidates=16, max_dr=max_dr,
             icp=icp or pd.params.icp, batch=B,
             flat_output=True, device_nms=device_nms,
             num_seeds=num_seeds, fine_compact=fine_compact,
@@ -187,7 +182,7 @@ def main():
         icp=_I(iterations=32, num_levels=4, solves_per_assoc=2))
     deltas["finest2"] = full - run_variant(
         "finest2", icp=_I(iterations=32, num_levels=4, finest_assoc=2))
-    deltas["window(MXU assoc)"] = full - run_variant(
+    deltas["window(assoc)"] = full - run_variant(
         "window", icp_window=iw_auto)
     deltas["win+solves2"] = full - run_variant(
         "win_solves2", icp_window=iw_auto,

@@ -24,8 +24,8 @@ os.environ["XLA_FLAGS"] = (
     os.environ.get("XLA_FLAGS", "") + " --xla_force_host_platform_device_count=8"
 ).strip()
 
-sys.path.insert(0, "/root/repo")
-sys.path.insert(0, "/root/repo/tools")
+sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
+sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
 
 import numpy as np  # noqa: E402
 
@@ -60,7 +60,7 @@ def main():
     deps = jnp.asarray((900 + rng.randint(0, 700, (B, H, W))).astype(np.uint16))
     args = (
         [bgrs, deps],
-        bank.kernels_low, bank.kernels_dec,
+        bank.kernels_low,
         (bank.feat_plane, bank.feat_dr, bank.feat_dc, bank.feat_n),
         jnp.asarray(bank.nfeat[0]), jnp.asarray(bank.nfeat[1]),
         jnp.asarray(bank.sizes[0]), jnp.asarray(bank.sizes[1]),
@@ -72,7 +72,7 @@ def main():
         prog = mp.make_match_program(
             det.modality_names, det.t_at_level, (H, W),
             det.dn_params, det.cg_params,
-            max_candidates=8, max_dr=max_dr, refine_impl="conv",
+            max_candidates=8, max_dr=max_dr,
             batch=B, mesh=m,
         )
         t0 = time.time()
